@@ -98,9 +98,8 @@ def score_kl(emb, p, block=512):
 
 
 def main():
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_sph"))
+    from sph_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     mode = sys.argv[1] if len(sys.argv) > 1 else "kl"
     n = int(sys.argv[2]) if len(sys.argv) > 2 else (
         50_000 if mode == "kl" else 1_000_000)

@@ -54,7 +54,7 @@ def exact_query_knn(data: np.ndarray, q_ids: np.ndarray, k: int
     @jax.jit
     def run(q, db):
         # HIGHEST precision is load-bearing: default-precision f32 dots
-        # multiply in bf16 on the MXU, and with clustered-data norms
+        # may multiply in bf16 or TF32, and with clustered-data norms
         # (~2000) the |q|^2+|db|^2-2qb expansion error reaches ~1 in d^2
         # — enough to misrank ~6% of k-boundary neighbors.  A bf16 ground
         # truth silently capped measured recall at 0.9394 for ANY index

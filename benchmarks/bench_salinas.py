@@ -1,15 +1,13 @@
-"""Salinas-scale (512x217x224 = 111k px) end-to-end on TPU (VERDICT r2
-item 7): full hierarchy + level similarities + level-1 t-SNE at 28.8k
-components — the size band just past the round-2 dense-P cap that was
-never timed on hardware.  Also times a level-2 UMAP.
+"""Salinas-scale (512x217x224 = 111k px) end-to-end on one device: full
+hierarchy + level similarities + level-1 t-SNE at ~28k components (inside
+the dense-P tier).  Also times a level-2 UMAP.
 
 Config mirrors bench.py's Pines config (comparison_pines_embed.json
 semantics: NEIGH_WALKS + MERGE_RW_ONLY, symmetrized component-connected
 kNN) at the Salinas geometry from comparison/comparison_salinas_*.json.
 
 Usage: python benchmarks/bench_salinas.py [tsne_iters]
-Prints one JSON line per phase; appends nothing (copy results to
-docs/performance.md by hand).
+Prints one JSON line per phase.
 """
 
 import json
@@ -23,10 +21,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_sph"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+    from sph_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from sph_tpu import (ComputeEmbedding, ComputeEmbeddingSettings,
                          ComputeHierarchy, ComponentSim,

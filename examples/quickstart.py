@@ -15,9 +15,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def main():
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_sph"))
+    from sph_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import numpy as np
     from sph_tpu import (ComputeEmbedding, ComputeEmbeddingSettings,
                          ComputeHierarchy, ComponentSim,

@@ -8,7 +8,12 @@ structure, with BOTH embeddings scored under the identical joint P
 (tests/test_cross_library.py does this at toy scale; this script does it at
 the flagship Pines-level-1 scale and records the result).
 
-Writes docs/anchors_pines.json and prints a summary line.
+Stages (ANCHOR_STAGE): 'ours' builds the hierarchy and runs our optimizer
+(on the GPU) and caches level-1 P and the embedding under ANCHOR_CACHE
+(default <checkout>/.jax_cache/anchors); 'sklearn' loads that cache and runs
+only the host-side Barnes-Hut leg; unset runs both in one process.
+
+Writes docs/anchors_{scene}.json (KL values only) and prints it.
 """
 
 import json
@@ -61,14 +66,17 @@ def kl_under_p(p, emb: np.ndarray, block: int = 2048) -> float:
     return float(total)
 
 
+def _cache_dir() -> str:
+    from sph_tpu.utils.compile_cache import compile_cache_dir
+    d = os.environ.get("ANCHOR_CACHE") or os.path.join(
+        compile_cache_dir(), "anchors")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
 def main():
-    import jax
-    # persistent compile cache, same as bench.py: without it the Salinas
-    # hierarchy pays ~20 min of XLA compiles (observed 1411 s vs 201 s)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_sph"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+    from sph_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from sph_tpu import (ComputeEmbedding, ComputeEmbeddingSettings,
                          ComputeHierarchy, ComponentSim,
@@ -91,9 +99,9 @@ def main():
         rows, cols, channels, k, seed = 145, 145, 200, 91, 7
     tsne_iters = int(os.environ.get("ANCHOR_TSNE_ITERS", 2000))
 
-    # P cache: the Salinas hierarchy costs minutes on TPU; when only the
-    # CPU-side sklearn anchor needs re-running, reload level-1 P from disk
-    p_cache = f"/tmp/anchor_{scene}_p.npz"
+    # P cache: when only the host-side sklearn anchor needs re-running,
+    # reload level-1 P from disk
+    p_cache = os.path.join(_cache_dir(), f"anchor_{scene}_p.npz")
     if os.path.exists(p_cache):
         from sph_tpu.ops.sparse import SparseRows
         z = np.load(p_cache)
@@ -144,7 +152,7 @@ def main():
     n = p.num_rows
     print(f"# hierarchy {hierarchy_s:.1f}s levels={levels}, level-1 n={n}",
           flush=True)
-    np.savez(p_cache, indices=p.indices, values=p.values,
+    np.savez_compressed(p_cache, indices=p.indices, values=p.values,
              num_cols=p.num_cols, levels=np.asarray(levels), level=level)
     _run_embeds(scene, rows, cols, channels, tsne_iters, p, levels, level,
                 n, hierarchy_s)
@@ -152,17 +160,16 @@ def main():
 
 def _run_embeds(scene, rows, cols, channels, tsne_iters, p, levels, level,
                 n, hierarchy_s):
-    """ANCHOR_STAGE env: 'ours' runs only our optimizer (on TPU) and
-    caches the embedding; 'sklearn' loads that cache and runs only the
-    CPU Barnes-Hut side; unset runs both in one process.  The split lets
-    the slow single-core sklearn leg run off-TPU in the background."""
+    """ANCHOR_STAGE env: 'ours' runs only our optimizer and caches the
+    embedding; 'sklearn' loads that cache and runs only the host-side
+    Barnes-Hut leg; unset runs both in one process."""
     stage = os.environ.get("ANCHOR_STAGE", "")
-    emb_cache = f"/tmp/anchor_{scene}_ours_emb.npz"
+    emb_cache = os.path.join(_cache_dir(), f"anchor_{scene}_ours_emb.npz")
 
     # ours
     if stage == "sklearn" and os.path.exists(emb_cache):
         z = np.load(emb_cache)
-        emb_mine, kl_mine, tsne_s = z["emb"], float(z["kl"]), float(z["s"])
+        emb_mine, kl_mine = z["emb"], float(z["kl"])
         print(f"# ours loaded from {emb_cache}: kl_under_p={kl_mine:.4f}",
               flush=True)
     else:
@@ -170,13 +177,11 @@ def _run_embeds(scene, rows, cols, channels, tsne_iters, p, levels, level,
         es = ComputeEmbeddingSettings()
         es.tsne.num_iterations = tsne_iters
         ce = ComputeEmbedding(es)
-        t1 = time.perf_counter()
         emb_mine = ce.compute_tsne(p, track_kl=True)
-        tsne_s = time.perf_counter() - t1
         kl_mine = kl_under_p(p, emb_mine)
-        print(f"# ours: {tsne_s:.1f}s kl_under_p={kl_mine:.4f} "
-              f"(tracked {ce.last_kl})", flush=True)
-        np.savez(emb_cache, emb=np.asarray(emb_mine), kl=kl_mine, s=tsne_s)
+        print(f"# ours: kl_under_p={kl_mine:.4f} (tracked {ce.last_kl})",
+              flush=True)
+        np.savez(emb_cache, emb=np.asarray(emb_mine), kl=kl_mine)
         if stage == "ours":
             return
 
@@ -186,7 +191,6 @@ def _run_embeds(scene, rows, cols, channels, tsne_iters, p, levels, level,
     # components a dense [N, N] f64 is multi-GB, so the support distances
     # go in as a sparse CSR (sklearn >= 1.2 BH accepts sparse precomputed)
     from sklearn.manifold import TSNE as SkTSNE
-    t2 = time.perf_counter()
     if n <= 10_000:
         pd_dense = p.to_dense().astype(np.float64)
         np.fill_diagonal(pd_dense, 0.0)
@@ -242,9 +246,8 @@ def _run_embeds(scene, rows, cols, channels, tsne_iters, p, levels, level,
                 method="barnes_hut",
                 perplexity=min(30.0, (n - 1) / 3.0))
     emb_sk = sk.fit_transform(d)
-    sk_s = time.perf_counter() - t2
     kl_sk = kl_under_p(p, emb_sk)
-    print(f"# sklearn-BH: {sk_s:.1f}s kl_under_p={kl_sk:.4f} "
+    print(f"# sklearn-BH: kl_under_p={kl_sk:.4f} "
           f"(its own kl {sk.kl_divergence_:.4f})", flush=True)
 
     out = {
@@ -256,13 +259,9 @@ def _run_embeds(scene, rows, cols, channels, tsne_iters, p, levels, level,
         "kl_under_p_ours": round(kl_mine, 5),
         "kl_under_p_sklearn_bh": round(kl_sk, 5),
         "ratio_ours_over_sklearn": round(kl_mine / kl_sk, 4),
-        "hierarchy_s": round(hierarchy_s, 1),
-        "tsne_s_ours": round(tsne_s, 1),
-        "tsne_s_sklearn": round(sk_s, 1),
         "note": "both embeddings scored under the identical joint P "
                 "(level-1 walk similarities); sklearn optimizes its own "
-                "P from -log(p) precomputed distances. Wall-clocks are "
-                "single-core CPU and fluctuate 2-3x on this VM.",
+                "P from -log(p) precomputed distances on the host.",
     }
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "..", "docs", f"anchors_{scene}.json")

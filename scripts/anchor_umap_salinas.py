@@ -52,11 +52,8 @@ def neighborhood_preservation(emb: np.ndarray, top_src: np.ndarray,
 
 
 def main():
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_sph"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+    from sph_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from sph_tpu import native
     from sph_tpu.models.umap import (UmapComputation, UmapParameters,

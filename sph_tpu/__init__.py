@@ -1,6 +1,6 @@
-"""sph-tpu: a TPU-native superpixel-hierarchy + embedding framework.
+"""sph-tpu: a superpixel-hierarchy + embedding framework on the GPU.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of alxvth/SPH
+A from-scratch JAX/XLA rebuild of the capabilities of alxvth/SPH
 (superpixel hierarchies and t-SNE/UMAP embeddings for high-dimensional
 images), keeping its four-stage public API:
 

@@ -3,7 +3,7 @@
 Reference: sph/utils/Data.hpp:33-115 (flat row-major float matrix numPoints x
 numDimensions) and sph/utils/Scaler.cpp:15-47 (NONE/STANDARD/UNIFORM/ROBUST).
 
-The TPU design keeps the same "flat matrix + image shape" model but stores the
+This design keeps the same "flat matrix + image shape" model but stores the
 matrix as a single [N, D] float32 array that is staged to device once and
 reused by every pipeline stage (kNN matmuls, centroid math, similarity
 kernels).

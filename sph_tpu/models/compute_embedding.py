@@ -78,7 +78,7 @@ class ComputeEmbedding:
 
         total = self.settings.tsne.num_iterations
         # run in chunks of 50 (reference uses 10 for UI progress; larger
-        # chunks amortize dispatch on TPU)
+        # chunks amortize dispatch)
         chunk = 50
         done = 0
         tsne.compute(min(chunk, total), verbose=False)

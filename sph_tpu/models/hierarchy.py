@@ -6,7 +6,7 @@ mapFromLevelToPixel, randomWalks, notMergedNodes; `addLevel` performs
 updateParentsAndChildren (:162-202), updateSpatialNeighbors (:204-227),
 updateComponentMap (:229-248) and updateRandomWalks (:250-390).
 
-TPU-first redesign: pointer-chasing child lists become flat label arrays —
+Redesign: pointer-chasing child lists become flat label arrays —
 `pixel_components[level]` maps every pixel to its component id, from which
 children and represented-point lists are derived with argsort/bincount
 (vectorized, no recursion).  Walk matrices are fixed-width SparseRows merged

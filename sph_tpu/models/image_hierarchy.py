@@ -7,7 +7,7 @@ thresholding via computeQuantile (:371-394), weak-CC labeling of the merge
 graph, stagnation/min-comp/max-level stopping rules (:418-453), and the
 7-policy adaptive random-walk-length schedule (:504-548).
 
-TPU-first redesign: the per-level "distance graph" is an edge list over
+Redesign: the per-level "distance graph" is an edge list over
 (component, spatial neighbor) pairs; every similarity metric evaluates ALL
 edges of a level in one batched device call (ops/similarities) instead of the
 reference's per-edge virtual calls in an OpenMP loop.  The level loop itself
@@ -126,11 +126,9 @@ class ImageHierarchy:
                          walks: Optional[SparseRows] = None):
         """Inject precomputed stage-1 preparations (data-level probdist and
         optionally the data-level random walks) so compute() skips the
-        per-scene normalize + walk simulation.  Used by the batched
-        multi-scene path (parallel/sharded.multi_scene_stage1), which
-        computes these for all scenes in one sharded device program —
-        the TPU-parallel replacement for the reference's strictly serial
-        per-scene outer loop (RunEvaluation.cpp:148-172)."""
+        normalize + walk simulation: e.g. another backend's P, to check
+        that the walks and merges downstream of it give the same levels
+        (chip_smoke.py phase B)."""
         self._preset_probdist = data_level_probdist
         self._preset_walks = walks
 
@@ -200,7 +198,7 @@ class ImageHierarchy:
                 self.hierarchy.merged_data_graphs.append(dist_rows)
 
     def _prepare_from_preset(self, preset_pd: SparseRows):
-        """Preparations from injected stage-1 outputs (multi-scene path)."""
+        """Preparations from injected stage-1 outputs (set_preparations)."""
         n = self._data.shape[0]
         assert preset_pd.num_rows == n
         self.data_level_probdist = preset_pd

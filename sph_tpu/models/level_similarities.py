@@ -8,8 +8,8 @@ Bhattacharyya via createSimilarities or raw top-k walk rows; kNN-metric
 levels use Gaussian-perplexity rows), and TSNE/UMAP symmetrization
 (:589-623).
 
-TPU-first redesign: hnswlib's HNSW over virtual ComponentID spaces becomes
-exact blocked metric matrices + top-k on the MXU (ops/component_knn) — at
+Redesign: hnswlib's HNSW over virtual ComponentID spaces becomes
+exact blocked metric matrices + top-k (ops/component_knn) — at
 per-level component counts the dense product outruns index construction.
 """
 
@@ -290,8 +290,9 @@ class LevelSimilarities:
         pd = drop_zero_entries(pd, shrink=False)
         nnz = pd.row_nnz()
         # empty probability rows mean an upstream kernel silently produced
-        # zeros (a TPU-lowering bug class invisible to CPU CI — e.g. the
-        # round-5 sorted-scatter densify); fail loudly here, at the stage
+        # zeros (a lowering bug class that a CPU run cannot show — e.g. a
+        # sorted-scatter hint broken by duplicate pad indices); fail loudly
+        # here, at the stage
         # boundary, instead of as KL=0 embeddings downstream
         # (tiny levels CAN legitimately zero out — e.g. two components
         # whose walk rows share no support after pruning)

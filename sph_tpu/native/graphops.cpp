@@ -1,6 +1,6 @@
 // Native host-side graph restructuring ops.
 //
-// The TPU compute path (kNN matmuls, walks, similarity products, gradient
+// The device compute path (kNN matmuls, walks, similarity products, gradient
 // descent) lives in XLA; what remains on the host is irregular
 // restructuring work — exactly the part the reference implements in C++
 // with Boost/OpenMP (GraphUtils.cpp symmetrizeGraph, connected-component

@@ -2,7 +2,7 @@
 
 The level loop shrinks component counts geometrically, so naive per-level
 shapes would compile every kernel once per level (XLA compiles per static
-shape; 20-40 s each on TPU).  Bucketing pads the varying dimensions to a
+shape, seconds each).  Bucketing pads the varying dimensions to a
 small set of canonical sizes — row counts to multiples of a block, widths
 and k to powers of two — so all levels of all runs share a handful of
 compiled programs, and the persistent compilation cache carries them across

@@ -6,19 +6,19 @@ ComponentID{level, id} structs, searched either exactly (O(n^2) loop,
 :211-252) or via hnswlib HNSW with the 5 custom SpaceInterface adapters
 (sph/utils/*Space.hpp).
 
-TPU-first redesign: component counts shrink geometrically per level, so the
+Redesign: component counts shrink geometrically per level, so the
 exact O(C^2) computation is cheap *if* it is laid out as blocked matmuls:
 
-* NEIGH_OVERLAP      -> 0/1 membership matrix product M M^T on the MXU
-* NEIGH_WALKS        -> sqrt-walk product (Bhattacharyya) on the MXU
+* NEIGH_OVERLAP      -> 0/1 membership matrix product M M^T
+* NEIGH_WALKS        -> sqrt-walk product (Bhattacharyya)
 * NEIGH_WALKS_SINGLE -> max(W, W^T) from densified walk blocks
 * EUCLID_CENTROID    -> blocked sampled-point Hausdorff (batched matmuls)
 * GEO_*              -> SSSP fields (ops/shortest_path) + Hausdorff gather
 
 Each returns a fixed-k distance graph (indices [C, k], distances [C, k],
 ascending, self first) — the exact analogue of the reference's per-level
-`_distanceGraphs`.  HNSW is unnecessary: the MXU evaluates the full matrix
-faster than an index could be built.
+`_distanceGraphs`.  HNSW is unnecessary: a blocked matmul evaluates the full
+matrix faster than an index could be built.
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ def _overlap_knn(members: jax.Array, counts: jax.Array, n_valid, k: int,
     dist = 1 - sim (reference: NeighborOverlapSpace.hpp:31-42).
 
     int8 storage keeps Salinas-scale membership (50k comps x 111k pixels)
-    under HBM budget; the intersection counts come out exact through the
-    int8 x int8 -> f32 MXU product (counts << 2^24)."""
+    under a device-memory budget; the intersection counts come out exact
+    through the int8 x int8 -> f32 matmul (counts << 2^24)."""
     cpad, n = members.shape
     num_blocks = cpad // block
     col_ids = jax.lax.broadcasted_iota(jnp.int32, (1, cpad), 1)
@@ -116,7 +116,8 @@ def _walks_knn(indices: jax.Array, values: jax.Array, n_valid, k: int,
             v = jnp.sqrt(jnp.maximum(v, 0.0))
         # pads route to strictly-increasing off-grid columns (cpad + lane)
         # so per-row indices are truly sorted AND unique for the scatter
-        # lowering — a shared pad column breaks it on TPU (zeros; see
+        # lowering — a shared pad column makes the hint false, and a
+        # scatter under a false hint may silently write zeros (see
         # pairwise_similarities densify)
         rr2 = jax.lax.broadcasted_iota(jnp.int32, (block, r), 0)
         lane = jax.lax.broadcasted_iota(jnp.int32, (block, r), 1)
@@ -130,8 +131,8 @@ def _walks_knn(indices: jax.Array, values: jax.Array, n_valid, k: int,
         # sim = max(w[a, b], w[b, a]): blocked densify of both the row and
         # column blocks — the transposed entries come from slicing the
         # column block's dense rows, not from per-element sparse lookups
-        # (vmapped searchsorted lowers to lane gathers, the TPU slow path;
-        # see sparse._bhattacharyya_pairs_device)
+        # (vmapped searchsorted lowers to per-element gathers; see
+        # sparse._bhattacharyya_pairs_device)
         def row_block(rb):
             rows_dense = densify(rb, False)        # w[a, :] for the block
             row_ids = (jax.lax.broadcasted_iota(jnp.int32, (block, 1), 0)
@@ -242,7 +243,7 @@ def _hausdorff_knn(points: jax.Array, mask: jax.Array, n_valid, k: int,
     """points: [Cpad, S, D] sampled representative points, mask [Cpad, S].
 
     Hausdorff over sampled sets, blocked over row components; the inner
-    [block*S, Cpad*S] distance product runs on the MXU.
+    [block*S, Cpad*S] distance product runs as one matmul.
     """
     cpad, s, d = points.shape
     num_blocks = cpad // block
@@ -320,10 +321,10 @@ def _finalize(ids: np.ndarray, dists: np.ndarray
 # Reference: computeApproximateKnn (LevelSimilarities.cpp:254-334) builds an
 # hnswlib HNSW (M=16, efC=200) whose "points" are ComponentID structs and
 # whose distance calls the virtual component metric.  Graph-walk indexes are
-# pointer-chasing and hostile to the TPU; the TPU-native equivalent keeps the
-# approximation *in the candidate generation*: k-means cluster pruning over a
-# dense proxy sketch of each component (all matmuls), then the EXACT pair
-# metric on only the pruned candidate set.  Recall is controlled by nprobe,
+# pointer-chasing and serialize on an accelerator; the device equivalent
+# keeps the approximation *in the candidate generation*: k-means cluster
+# pruning over a dense proxy sketch of each component (all matmuls), then
+# the EXACT pair metric on only the pruned candidate set.  Recall is controlled by nprobe,
 # like FAISS IVF / hnswlib efSearch.
 
 def project_sparse_rows(rows: SparseRows, dim: int = 128,

@@ -6,7 +6,7 @@ early-out, then Boost A* -> Dijkstra -> own A* fallbacks; and
 sph/utils/Similarities.cpp geodesicDistance (:234-310) — symmetric Hausdorff
 over (sampled) represented-point pairwise geodesics.
 
-TPU-first redesign: per-pair A* is pointer-chasing and inherently serial, so
+Redesign: per-pair A* is pointer-chasing and inherently serial, so
 it is replaced by *multi-source Bellman-Ford sweeps*: one [F, N] distance
 field per component (sources = its sampled represented pixels), iterated as
 masked gather-mins under `lax.while_loop` until no distance changes.  The
@@ -297,7 +297,7 @@ def contracted_geodesics(hierarchy, data: np.ndarray, level: int,
                          batch: int = 256) -> np.ndarray:
     """All-pairs geodesic distances over the *contracted* component graph.
 
-    TPU-native multilevel approximation for large component counts, where
+    Multilevel approximation for large component counts, where
     pixel-level SSSP fields (C fields x N pixels) are infeasible for any
     implementation (the reference's per-pair A* + cache has the same
     asymptotic wall): nodes are the level's components, edges its spatial

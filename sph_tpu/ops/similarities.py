@@ -5,10 +5,10 @@ dispatches per ComponentSim to NEIGH_OVERLAP (:174-228), GEO_* (:234-310),
 NEIGH_WALKS Bhattacharyya (:353-396), NEIGH_WALKS_SINGLE_OVERLAP (:328-351,
 :374-377), EUCLID_CENTROID Hausdorff (:414-483).
 
-TPU-first redesign: the reference calls a virtual distance function once per
+Redesign: the reference calls a virtual distance function once per
 edge inside an OpenMP loop, memoized by a mutex-guarded DistanceCache.  Here
 every metric is a *batched* kernel over all requested (a, b) pairs at once:
-gathers + VPU reductions for the sparse overlap metrics and MXU matmuls for
+gathers + elementwise reductions for the sparse overlap metrics and matmuls for
 the Hausdorff point-set metrics.  No cache is needed — recomputation is
 cheaper than the mutex (the reference itself concluded this and disabled the
 cache, ComputeHierarchy.cpp:187).
@@ -34,9 +34,8 @@ _BIG_I32 = np.int32(2**31 - 1)
 @jax.jit
 def _lookup_pairs(indices, values, rows, cols):
     """values[rows[e], cols[e]] for sparse rows.  One [E, R] lane-parallel
-    compare + masked sum — vmapped binary search lowers to per-element lane
-    gathers, which TPUs execute orders of magnitude slower (see
-    _bhattacharyya_pairs_device)."""
+    compare + masked sum — vmapped binary search lowers to per-element
+    gathers (see _bhattacharyya_pairs_device)."""
     ir = indices[rows]
     vr = values[rows]
     m = (ir == cols[:, None]) & (ir >= 0)
@@ -125,8 +124,8 @@ def _overlap_pairs(indices, counts, rows_a, rows_b):
     """|A intersect B| via a lane-local sorted merge: concatenate both id
     lists, sort along the lane axis, count adjacent equal ids (ids are
     unique per list, so every equal-adjacent pair is a cross-list match).
-    Binary-search membership lowers to per-element lane gathers — the slow
-    path on TPU (see _bhattacharyya_pairs_device)."""
+    Binary-search membership lowers to per-element gathers (see
+    _bhattacharyya_pairs_device)."""
     ia = indices[rows_a]
     ib = indices[rows_b]
     ia_s = jnp.where(ia < 0, _BIG_I32, ia)
@@ -179,7 +178,7 @@ def _hausdorff_device(data, rep_a, rep_b, chunk: int = 32):
 
     rep_a/rep_b: [E, S] padded (-1) represented data point ids.  Processes
     edges in chunks; each chunk computes an [chunk, S, S] pairwise L2 block
-    (one MXU batched matmul) and reduces.
+    (one batched matmul) and reduces.
     """
     e, s = rep_a.shape
 

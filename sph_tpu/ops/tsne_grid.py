@@ -1,8 +1,8 @@
 """Grid-interpolated t-SNE repulsion — the O(N + G^2 log G) large-N path.
 
 Reference intent: sph/EmbedTsne.cpp:165-178 scales Barnes-Hut theta with N
-(more approximation at larger N).  Trees are pointer-chasing and
-TPU-hostile, so this module takes the polynomial-interpolation route
+(more approximation at larger N).  Trees are pointer-chasing and serialize
+on an accelerator, so this module takes the polynomial-interpolation route
 instead (the FIt-SNE family, Linderman et al. 2019): both repulsion terms
 are convolutions of point charges with smooth shift-invariant kernels,
 
@@ -17,9 +17,9 @@ point positions.  The kernel-interpolation form needs no Fourier
 deconvolution — the only error is the cubic interpolation error of the
 (smooth, bounded-curvature) kernels, O(h^4).
 
-TPU-first formulation: scatter/gather of N points into a 2-D grid is the
-canonical TPU pathology (per-element scatters serialize).  Both transfers
-are therefore written as dense matmuls on the MXU: the separable weight
+Formulation: scatter/gather of N points into a 2-D grid is made of
+per-element scatters, which serialize on colliding cells.  Both transfers
+are therefore written as dense matmuls: the separable weight
 matrices W_x [c, G] and W_y [c, G] (4 nonzero taps per row, materialized
 as dense elementwise rows) give
 
@@ -103,7 +103,7 @@ def grid_coords(yp: jax.Array, valid: jax.Array, lo_x, lo_y, hx, hy,
 
 def deposit_charges(yp: jax.Array, tx_all: jax.Array, ty_all: jax.Array,
                     valid: jax.Array, grid: int, chunk: int) -> jax.Array:
-    """[3, G, G] charge grids (unit, x, y) via chunked MXU deposits.
+    """[3, G, G] charge grids (unit, x, y) via chunked matmul deposits.
     Row count must be a multiple of ``chunk``."""
     nchunks = yp.shape[0] // chunk
     chunk_ids = jnp.arange(nchunks)

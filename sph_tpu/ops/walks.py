@@ -6,7 +6,7 @@ next node by inverse-CDF over the similarity row (in ascending column order),
 with five importance-weighting schemes, optional pruning, diagonal removal
 and row normalization.
 
-TPU-first redesign: all C * W walkers advance in lock-step under a
+Redesign: all C * W walkers advance in lock-step under a
 `lax.scan` over steps — each step is one gather of the cumulative-probability
 rows plus a vectorized CDF inversion (a `sum(cum <= u)` count, identical to
 the reference's first-crossing scan in index order).  Visit accumulation is a
@@ -71,10 +71,19 @@ def _simulate(indices: jax.Array, values: jax.Array, seed: jax.Array,
 
     Sampling matches the reference: u ~ U(0,1); next = first column j (in
     ascending index order) with u < cumsum(row)[j]; if none, stay.
+
+    The cumulative sums are taken in integers, over probabilities rounded
+    to 2^-24 (f32 resolution at 1): exact in any summation order, so two
+    backends, or a batched and an unbatched program, sample the same
+    steps unless the probabilities themselves differ.  An f32 cumsum
+    rounds in an order-dependent way (up to ~1e-6 across a wide row),
+    enough to send walkers to different neighbors on two backends.
     """
     c, r = indices.shape
     w = num_walks
-    cum = jnp.cumsum(jnp.where(indices >= 0, values, 0.0), axis=1)  # [C, R]
+    scale = float(1 << 24)
+    q = jnp.round(jnp.where(indices >= 0, values, 0.0) * scale)
+    cum = jnp.cumsum(q.astype(jnp.int32), axis=1)  # [C, R], exact
 
     # derive the walker-state carry from the (data-dependent) indices so it
     # is "varying" when traced inside shard_map (the multi-scene stage-1
@@ -95,7 +104,8 @@ def _simulate(indices: jax.Array, values: jax.Array, seed: jax.Array,
 
     def step(nodes, t):
         u = jax.random.uniform(jax.random.fold_in(key, t), (total,))
-        u_p = jnp.concatenate([u, jnp.zeros(npadw - total, jnp.float32)])
+        u = jnp.floor(u * scale).astype(jnp.int32)
+        u_p = jnp.concatenate([u, jnp.zeros(npadw - total, jnp.int32)])
 
         def sub(args):
             nodes_c, u_c = args
@@ -105,7 +115,7 @@ def _simulate(indices: jax.Array, values: jax.Array, seed: jax.Array,
             safe_pos = jnp.minimum(pos, r - 1)
             # lane-select the sampled column instead of a per-element 2D
             # gather (indices[nodes_c, safe_pos] lowers to scalar lane
-            # gathers, the TPU slow path): one more row gather + a
+            # gathers, the slow path this avoids): one more row gather + a
             # lane-parallel select
             rows_idx = indices[nodes_c]      # [chunk, R]
             sel = (jax.lax.broadcasted_iota(jnp.int32, rows_idx.shape, 1)
@@ -179,8 +189,8 @@ def _accumulate(visited: jax.Array, num_walks: int, walk_length: int,
     cts = counts.reshape(l, c, w).transpose(1, 2, 0).reshape(c, w * l)
 
     # lane-local co-sort by node id — argsort + [rr, order] gathers and
-    # .at[rr, run_id].add scatters lower to per-element lane ops on TPU
-    # (the slow path, see sparse._bhattacharyya_pairs_device); the sorted
+    # .at[rr, run_id].add scatters lower to per-element ops (see
+    # sparse._bhattacharyya_pairs_device); the sorted
     # layout lets segmented run sums come from cumsum + a cummax-propagated
     # run base instead
     ids_s, wts_s, cts_s = jax.lax.sort((ids, wts, cts), num_keys=1,
@@ -247,7 +257,7 @@ def _postprocess(idx: jax.Array, val: jax.Array, prune_value: jax.Array,
     big = jnp.int32(2**31 - 1)
     key = jnp.where(valid, idx, big)
     # multi-operand lane sort instead of argsort + [rr, order] gathers
-    # (per-element lane gathers are the TPU slow path)
+    # (per-element lane gathers are the slow path this avoids)
     _, idx_s, val_s = jax.lax.sort(
         (key, jnp.where(valid, idx, -1), jnp.where(valid, val, 0.0)),
         num_keys=1, dimension=1, is_stable=True)

@@ -1,8 +1,8 @@
 """Multi-chip execution: mesh helpers + sharded kNN / t-SNE / batching.
 
 Reference has no distributed layer (SURVEY.md §2.4) — this package is the
-TPU-native replacement for its OpenMP shared-memory parallelism, scaling
-over a `jax.sharding.Mesh` with ICI collectives instead of threads.
+Device replacement for its OpenMP shared-memory parallelism, scaling
+over a `jax.sharding.Mesh` with XLA collectives instead of threads.
 """
 
 from .mesh import make_mesh, replicate, shard_rows

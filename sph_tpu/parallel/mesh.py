@@ -1,13 +1,14 @@
 """Device mesh helpers.
 
 The reference has no distributed runtime (SURVEY.md §2.4 — its parallelism is
-OpenMP/TBB shared memory).  The TPU-native scaling axes added here:
+OpenMP/TBB shared memory).  The scaling axes added here:
 
 * ``data`` — points/components sharded across chips (kNN rows, t-SNE rows)
 * ``scene`` — independent images in a batched evaluation (BASELINE.json
-  config #5: 16 hyperspectral stacks across a v5e-16 slice)
+  config #5: 16 hyperspectral stacks across the devices of a mesh)
 
-Collectives ride ICI via shard_map + psum/all_gather; nothing crosses DCN.
+Collectives are shard_map + psum/all_gather over one host's devices, which
+are joined all to all, so the 1-D mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

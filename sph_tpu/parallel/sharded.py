@@ -5,13 +5,13 @@ The O(N^2) kernels shard their *row* dimension over the ``data`` mesh axis:
 * kNN: each chip scores its row block against the replicated (or gathered)
   point set — no cross-chip reduction needed beyond the initial layout.
 * t-SNE: the repulsive sum for a row shard needs every embedding position
-  (y is only [N, 2]) — one `all_gather` per iteration over ICI — and the
+  (y is only [N, 2]) — one `all_gather` per iteration — and the
   normalization Z is a `psum`.  This is the textbook data-parallel N-body
   decomposition; the reference has no analogue (its only accelerator path
   is a single-GPU GL shader, EmbedTsne.hpp:64-67).
 
 Multi-scene batching (`multi_scene_tsne`) shards independent scenes over the
-same axis — the BASELINE.json "16 hyperspectral stacks on v5e-16" config.
+same axis — the BASELINE.json "16 hyperspectral stacks" config.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from jax import shard_map
 
 from .mesh import make_mesh, replicate, shard_rows
 
+_F32_EPS = float(np.finfo(np.float32).eps)
+
 
 # ---------------------------------------------------------------------------
 # sharded kNN
@@ -38,7 +40,7 @@ def sharded_knn(data: np.ndarray, k: int, mesh: Optional[Mesh] = None,
 
     Each device holds a row shard and the full point set (replicated);
     distances + top-k are purely local, so scaling is embarrassingly
-    parallel over ICI-connected chips.
+    parallel-connected chips.
     """
     if mesh is None:
         mesh = make_mesh()
@@ -51,6 +53,8 @@ def sharded_knn(data: np.ndarray, k: int, mesh: Optional[Mesh] = None,
     col_block = min(4096, npad)
     while npad % col_block:
         col_block //= 2
+    from ..ops.knn import candidate_width, refine_candidates
+    kc = candidate_width(k)
 
     @functools.partial(
         shard_map, mesh=mesh,
@@ -78,18 +82,22 @@ def sharded_knn(data: np.ndarray, k: int, mesh: Optional[Mesh] = None,
             d2 = jnp.where(ids >= n, jnp.inf, d2)
             md = jnp.concatenate([top_d, d2], axis=1)
             mi = jnp.concatenate([top_i, ids], axis=1)
-            neg, sel = jax.lax.top_k(-md, k)
-            rr = jax.lax.broadcasted_iota(jnp.int32, sel.shape, 0)
-            return (-neg, mi[rr, sel]), None
+            sd, si = jax.lax.sort((md, mi), num_keys=1, dimension=1,
+                                  is_stable=True)
+            return (sd[:, :kc], si[:, :kc]), None
 
         # pcast to varying: the carry is per-device state inside shard_map
-        init = (jax.lax.pcast(jnp.full((rows.shape[0], k), jnp.inf,
+        init = (jax.lax.pcast(jnp.full((rows.shape[0], kc), jnp.inf,
                                        jnp.float32), axis, to="varying"),
-                jax.lax.pcast(jnp.full((rows.shape[0], k), -1, jnp.int32),
+                jax.lax.pcast(jnp.full((rows.shape[0], kc), -1, jnp.int32),
                               axis, to="varying"))
         (top_d, top_i), _ = jax.lax.scan(col_step, init,
                                          jnp.arange(nblk))
-        return jnp.sqrt(jnp.maximum(top_d, 0.0)), top_i
+        row_ids = (jnp.arange(rows.shape[0], dtype=jnp.int32)
+                   + jax.lax.axis_index(axis) * rows.shape[0])
+        top_d, top_i = refine_candidates(rows, row_ids, top_i, full, n, k)
+        top_d = jnp.where(top_d <= _F32_EPS, 0.0, top_d)
+        return jnp.sqrt(top_d), top_i
 
     rows_sharded = shard_rows(mesh, jnp.asarray(padded), axis)
     full_repl = replicate(mesh, jnp.asarray(padded))
@@ -128,9 +136,12 @@ def make_sharded_tsne_step(mesh: Mesh, axis: str = "data"):
         # repulsion: local rows vs all columns
         sq_full = jnp.sum(y_full * y_full, axis=1)
         sq_loc = jnp.sum(y * y, axis=1)
+        # HIGHEST as in models.tsne._repulsive_forces: the expansion
+        # amplifies reduced-precision products into d2
         d2 = (sq_loc[:, None] + sq_full[None, :]
               - 2.0 * jnp.dot(y, y_full.T,
-                              preferred_element_type=jnp.float32))
+                              preferred_element_type=jnp.float32,
+                              precision=jax.lax.Precision.HIGHEST))
         w = 1.0 / (1.0 + jnp.maximum(d2, 0.0))
         rows = (jax.lax.broadcasted_iota(jnp.int32, w.shape, 0) + row0)
         cols = jax.lax.broadcasted_iota(jnp.int32, w.shape, 1)
@@ -139,7 +150,8 @@ def make_sharded_tsne_step(mesh: Mesh, axis: str = "data"):
         z = jax.lax.psum(jnp.sum(w), axis)
         w2 = w * w
         rep = (jnp.sum(w2, axis=1)[:, None] * y
-               - jnp.dot(w2, y_full, preferred_element_type=jnp.float32))
+               - jnp.dot(w2, y_full, preferred_element_type=jnp.float32,
+                         precision=jax.lax.Precision.HIGHEST))
 
         # attraction over local P rows (global column ids)
         yj = y_full[jnp.maximum(p_idx, 0)]
@@ -231,8 +243,8 @@ def make_sharded_grid_tsne_step(mesh: Mesh, grid: int, axis: str = "data",
     (ops/tsne_grid.py).
 
     Decomposition: rows (points) shard over ``axis``.  Each chip deposits
-    its shard's charges onto the [3, G, G] grid locally (chunked MXU
-    matmuls), the grids are `psum`-reduced over ICI (the only O(G^2)
+    its shard's charges onto the [3, G, G] grid locally (chunked
+    matmuls), the grids are `psum`-reduced (the only O(G^2)
     collective — 3*G^2 floats, independent of N), every chip runs the
     small replicated FFT convolution, and interpolation/update stay local.
     Attraction all_gathers y (8 MB at 1M points) exactly like
@@ -250,7 +262,7 @@ def make_sharded_grid_tsne_step(mesh: Mesh, grid: int, axis: str = "data",
         rows = row0 + jnp.arange(shard_n, dtype=jnp.int32)
         valid = rows < n_valid
 
-        # global bbox over valid rows (pmin/pmax ride ICI)
+        # global bbox over valid rows (pmin/pmax across the mesh)
         big = jnp.float32(3.4e38)
         lo_x = jax.lax.pmin(jnp.min(jnp.where(valid, y[:, 0], big)), axis)
         lo_y = jax.lax.pmin(jnp.min(jnp.where(valid, y[:, 1], big)), axis)
@@ -318,8 +330,9 @@ def sharded_grid_tsne(p_indices: np.ndarray, p_values: np.ndarray,
                       axis: str = "data", seed: int = 0,
                       grid: int = 0, params=None) -> np.ndarray:
     """Full multi-chip grid-tier t-SNE (P = symmetrized joint rows,
-    normalized to total sum 1).  grid=0 picks the size from the init
-    radius like the single-chip tier."""
+    normalized to total sum 1).  grid=0 picks the size from the live span
+    like the single-chip tier; grid > 0 is the smallest node count, kept
+    until the span needs finer cells than it has."""
     from ..models.tsne import TsneParameters, default_exaggeration
     from ..ops.tsne_grid import pick_grid_size
     if mesh is None:
@@ -340,11 +353,7 @@ def sharded_grid_tsne(p_indices: np.ndarray, p_values: np.ndarray,
     from ..ops.math import random_disk_init
     y0 = np.zeros((npad, 2), np.float32)
     y0[:n] = random_disk_init(n, 0.1, seed)
-    # record auto-mode BEFORE the initial pick overwrites grid, else the
-    # live-span re-pick below can never engage
-    fixed_grid = grid > 0
-    if grid <= 0:
-        grid = pick_grid_size(float(np.ptp(y0[:n]).max()) + 1.0)
+    min_grid = max(grid, 0)
     pi = np.full((npad, r), -1, np.int32)
     pv = np.zeros((npad, r), np.float32)
     pi[:n] = p_indices
@@ -358,16 +367,18 @@ def sharded_grid_tsne(p_indices: np.ndarray, p_values: np.ndarray,
 
     # The embedding span grows ~30x over a run while the kernel width stays
     # ~1, so a grid picked at init degenerates (cells wider than the kernel
-    # curvature).  Mirror the single-chip tier: re-pick the pow2-bucketed
-    # grid from the live span between iteration chunks; compiled steps are
-    # cached per grid size.
+    # curvature) and its repulsion error runs away.  Mirror the single-chip
+    # tier: re-pick the pow2-bucketed grid from the live span between
+    # iteration chunks; a caller's grid is a floor, never a ceiling.
+    # Compiled steps are cached per grid size.
     steps: dict = {}
     regrid_every = 50
     it = 0
     while it < num_iterations:
-        if not fixed_grid:
-            span = float(jnp.max(jnp.max(y, axis=0) - jnp.min(y, axis=0)))
-            grid = pick_grid_size(max(span, 1.0) * 1.3)
+        span = float(jnp.max(jnp.max(y, axis=0) - jnp.min(y, axis=0)))
+        fine = pick_grid_size(max(span, 1.0) * 1.3,
+                              min_g=1 if min_grid else 128)
+        grid = max(min_grid, fine)
         if grid not in steps:
             steps[grid] = make_sharded_grid_tsne_step(mesh, grid, axis)
         step = steps[grid]
@@ -585,8 +596,8 @@ def multi_scene_stage1(datas: np.ndarray, k: int,
       idx/dist [S, N, k]  (self-first, sorted ascending, sqrt'd L2)
       probs    [S, N, k]  (per `norm`, ignore_first semantics)
       walks_idx/walks_val [S, N, Wo] or None when `rws` is None
-    Feed each scene's slices to ImageHierarchy.set_preparations to run the
-    (data-dependent) level loops per scene over shared compiled kernels.
+    The probabilities and walks round differently from the single-scene
+    programs; `multi_scene_hierarchy` therefore takes only idx/dist.
     """
     from ..ops.graph import ensure_self_first_body
     from ..ops.distributions import gaussian_row_distributions, \
@@ -618,6 +629,9 @@ def multi_scene_stage1(datas: np.ndarray, k: int,
             seed_base = int(rws.random_seed)
     seeds = np.arange(spad, dtype=np.uint32) + np.uint32(seed_base or 0)
 
+    from ..ops.knn import candidate_width, refine_candidates
+    kc = candidate_width(k)
+
     def one_scene(pts, seed):
         # streaming exact self-kNN (same math as ops.knn._knn_device)
         row_sq = jnp.sum(pts * pts, axis=1)
@@ -641,15 +655,17 @@ def multi_scene_stage1(datas: np.ndarray, k: int,
             mi = jnp.concatenate([top_i, ids], axis=1)
             sd, si = jax.lax.sort((md, mi), num_keys=1, dimension=1,
                                   is_stable=True)
-            return (sd[:, :k], si[:, :k]), None
+            return (sd[:, :kc], si[:, :kc]), None
 
         # pcast to varying: the carry is per-device state inside shard_map
-        init = (jax.lax.pcast(jnp.full((npad, k), jnp.inf, jnp.float32),
+        init = (jax.lax.pcast(jnp.full((npad, kc), jnp.inf, jnp.float32),
                               axis, to="varying"),
-                jax.lax.pcast(jnp.full((npad, k), -1, jnp.int32),
+                jax.lax.pcast(jnp.full((npad, kc), -1, jnp.int32),
                               axis, to="varying"))
         (top_d, top_i), _ = jax.lax.scan(col_step, init, jnp.arange(nblk))
-        top_d = jnp.sqrt(jnp.where(top_d <= 1.2e-7, 0.0, top_d))
+        top_d, top_i = refine_candidates(
+            pts, jnp.arange(npad, dtype=jnp.int32), top_i, pts, n, k)
+        top_d = jnp.sqrt(jnp.where(top_d <= _F32_EPS, 0.0, top_d))
         idx, dist, _ = ensure_self_first_body(top_i[:n], top_d[:n])
 
         mask = jnp.ones_like(idx, dtype=bool)
@@ -702,20 +718,28 @@ def multi_scene_hierarchy(datas: np.ndarray, rows: int, cols: int,
                           k: int, ihs=None, rws=None, lss=None,
                           mesh: Optional[Mesh] = None,
                           axis: str = "data"):
-    """End-to-end scene-parallel hierarchy: batched stage-1 on the mesh,
-    then per-scene Borůvka level loops + level similarities on host over
-    SHARED compiled kernels (levels are data-dependent per scene; the
-    row-bucketed per-level kernels make the serial loops reuse the same
-    executables across scenes).
+    """End-to-end scene-parallel hierarchy: the batched exact kNN on the
+    mesh, then per scene the single-scene data-level P, walks, Borůvka
+    level loop and level similarities over SHARED compiled kernels (levels
+    are data-dependent per scene; the row-bucketed per-level kernels make
+    the serial loops reuse the same executables across scenes).
+
+    The batched kNN equals the single-scene kNN bit for bit, but a batched
+    P program rounds differently, and the walk sampler turns ulp-level P
+    differences into different levels; taking P and walks from the
+    single-scene programs makes every scene's levels equal those of
+    `ComputeHierarchy` on the raw kNN graph with walk seed
+    `rws.random_seed + i`.
 
     Returns a list of (ImageHierarchy, LevelSimilarities or None) per
     scene.  Reference analogue being parallelized: the strictly serial
     outer run loop, RunEvaluation.cpp:148-172.
     """
+    import dataclasses
+
     from ..models.image_hierarchy import ImageHierarchy
     from ..models.level_similarities import LevelSimilarities
     from ..ops.graph import KnnGraph
-    from ..ops.sparse import SparseRows
     from ..settings import ImageHierarchySettings, RandomWalkSettings
 
     ihs = ihs or ImageHierarchySettings()
@@ -723,26 +747,18 @@ def multi_scene_hierarchy(datas: np.ndarray, rows: int, cols: int,
     s, n, d = datas.shape
     assert n == rows * cols
 
-    stage1 = multi_scene_stage1(datas, k, rws=rws,
-                                norm=ihs.norm_knn_distances,
+    stage1 = multi_scene_stage1(datas, k, norm=ihs.norm_knn_distances,
                                 mesh=mesh, axis=axis)
 
     results = []
     for i in range(s):
         g = KnnGraph(stage1["idx"][i], stage1["dist"][i])
         ih = ImageHierarchy(g, datas[i], rows, cols)
-        ih.set_settings(ihs, rws)
-        pd = SparseRows(
-            np.where(stage1["probs"][i] > 0, stage1["idx"][i], -1
-                     ).astype(np.int32),
-            stage1["probs"][i], n)
-        walks = SparseRows(stage1["walks_idx"][i],
-                           stage1["walks_val"][i], n)
-        ih.set_preparations(pd, walks)
+        ih.set_settings(ihs, dataclasses.replace(
+            rws, random_seed=rws.random_seed + i))
         ih.compute()
         ls = None
         if lss is not None:
-            import dataclasses
             ls = LevelSimilarities(ih.hierarchy, g, datas[i],
                                    dataclasses.replace(lss))
             ls.set_image_hierarchy(ih)

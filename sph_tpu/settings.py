@@ -27,7 +27,7 @@ class Scaler(enum.Enum):
 class KnnIndex(enum.Enum):
     """kNN engine selection (reference: sph/utils/Settings.hpp:35-42).
 
-    On TPU the exact engines are blocked matmul + top_k on the MXU; the
+    The exact engines are blocked matmul + streaming top-k; the
     approximate tiers subsample/cluster before the matmul.  BRUTE_FORCE and
     FLAT are identical here (the reference distinction is a FAISS memory
     detail).
@@ -36,7 +36,7 @@ class KnnIndex(enum.Enum):
     BRUTE_FORCE = "brute_force"
     FLAT = "flat"
     IVF_FLAT = "ivf_flat"
-    HNSW = "hnsw"            # mapped to IVF-style cluster pruning on TPU
+    HNSW = "hnsw"            # mapped to IVF-style cluster pruning
     HNSWSQ = "hnswsq"        # + int8 quantized distances
     HNSW_IVFPQ = "hnsw_ivfpq"
 
@@ -126,10 +126,11 @@ class RandomWalkSettings:
     normalize: bool = True
     remove_diagonal: bool = True
     random_seed: int = 1
-    # kept for API parity; TPU walks are always deterministic given the seed
+    # kept for API parity; device walks are always deterministic given the seed
     parallel: bool = True
-    # TPU-specific: cap on stored non-zeros per walk row (fixed-width sparse
-    # rows).  0 means "derive from walk budget" (num_walks * walk_length).
+    # not in the reference: cap on stored non-zeros per walk row
+    # (fixed-width sparse rows).  0 means "derive from walk budget"
+    # (num_walks * walk_length).
     max_row_nnz: int = 0
 
 

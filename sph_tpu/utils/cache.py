@@ -7,7 +7,7 @@ stage will not load its cache unless its parent stage's cache loaded
 (`cacheDependencyIsValid`) — plus sph/utils/FileIO.hpp's chunked compressed
 serialization.
 
-TPU equivalent: LZ4-compressed array archives (utils/fileio.py, backed by
+Equivalent here: LZ4-compressed array archives (utils/fileio.py, backed by
 the native block codec) keyed by stage name, with the same parameter-JSON
 validation and parent-chain invalidation.  Legacy zlib/npz payloads from
 older caches remain readable.

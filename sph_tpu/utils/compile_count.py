@@ -65,7 +65,8 @@ def count_compiles():
     jax.config.update("jax_log_compiles", True)
     counter = CompileCounter()
     loggers = [logging.getLogger("jax._src.dispatch"),
-               logging.getLogger("jax._src.compiler")]
+               logging.getLogger("jax._src.compiler"),
+               logging.getLogger("jax._src.interpreters.pxla")]
     prev_state = [(lg.level, lg.propagate) for lg in loggers]
     for lg in loggers:
         lg.addHandler(counter)

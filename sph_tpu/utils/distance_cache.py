@@ -6,7 +6,7 @@ instantiated for shortest paths (ShortestPath.cpp:41-42) and component
 similarities (Similarities.cpp:33), with atomic hit/miss statistics
 (ShortestPath.cpp:18-35).
 
-TPU redesign: a per-pair scalar cache amortizes pointer-chasing A* calls;
+Redesign: a per-pair scalar cache amortizes pointer-chasing A* calls;
 here one *converged SSSP field* answers every query from its source, so the
 cache unit is the whole [N] field, not the scalar.  The cache holds an LRU
 of fields plus the reverse-adjacency preprocessing shared by all of them,

@@ -1,6 +1,6 @@
 """Profiling and debug-mode helpers.
 
-Reference §5.1: ScopedTimer RAII timers + Catch2 BENCHMARK blocks — the TPU
+Reference §5.1: ScopedTimer RAII timers + Catch2 BENCHMARK blocks — the JAX
 equivalents are `jax.profiler` traces plus block_until_ready wall-clock
 timing (utils/timer.py).
 
@@ -22,7 +22,7 @@ from .logging import Log
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/sph_tpu_trace",
+def trace(log_dir: str = "sph_trace",
           create_perfetto_link: bool = False):
     """Capture a jax.profiler trace around a region (view with
     tensorboard / xprof)."""

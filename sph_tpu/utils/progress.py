@@ -1,5 +1,5 @@
 """Console progress bar (reference: sph/utils/ProgressBar.hpp:15-62 —
-mutex-safe console bar on every long loop).  On TPU the long loops are
+mutex-safe console bar on every long loop).  On the device the long loops are
 single device dispatches, so this is mostly used by the host-side level loop
 and the eval grid."""
 

@@ -58,8 +58,8 @@ def print_sparse_matrix_stats(rows, name: str = ""):
 @dataclass
 class PipelineCounters:
     """Run counters (the analogue of the reference's atomic shortest-path /
-    similarity-cache statistics; recomputation replaced caching on TPU so
-    the counters track kernel dispatches instead)."""
+    similarity-cache statistics; recomputation replaced caching on the
+    device so the counters track kernel dispatches instead)."""
 
     knn_blocks: int = 0
     walk_batches: int = 0

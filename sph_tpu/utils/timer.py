@@ -1,6 +1,7 @@
 """Timing helpers (reference: sph/utils/Timer.hpp — ScopedTimer RAII and the
-`utils::timer` lambda wrapper).  On TPU, wall-clock timing must block on device
-work, so `block=True` calls `jax.block_until_ready` on the result."""
+`utils::timer` lambda wrapper).  On an accelerator, wall-clock timing must
+block on device work, so `block=True` calls `jax.block_until_ready` on the
+result."""
 
 from __future__ import annotations
 

@@ -3,10 +3,10 @@ OpenGL explorer.
 
 Reference: vis/ (SPHVisualization) — GLFW/ImGui point-cloud explorer over
 synthetic data with live kNN, shortest-path overlays and random-walk
-colormaps (Renderer.cpp:467-551).  A TPU node has no display, so this module
-renders the same views headlessly to PNG with matplotlib (Agg): embeddings
-colored by hierarchy level / labels, per-level superpixel maps, kNN edges,
-shortest-path overlays, and random-walk mass over a point cloud.  The
+colormaps (Renderer.cpp:467-551).  An accelerator node has no display, so
+this module renders the same views headlessly to PNG with matplotlib (Agg):
+embeddings colored by hierarchy level / labels, per-level superpixel maps,
+kNN edges, shortest-path overlays, and random-walk mass over a point cloud.  The
 `demo()` entry mirrors the reference vis app's synthetic-manifold flow.
 """
 

@@ -4,7 +4,7 @@ Reference parity target: vis/Renderer.cpp (1042 LoC interactive OpenGL/ImGui
 explorer: level maps, kNN edge overlay with distance/similarity weighting,
 shortest-path overlay between picked nodes, random-walk similarity colormap
 on click, point/line visual settings).  This environment is headless and has
-zero network egress, so the TPU-native equivalent is an exported
+zero network egress, so the equivalent here is an exported
 single-file HTML app: all data embedded as JSON, all rendering vanilla-JS
 canvas (pan/zoom/pick), no external dependencies.
 
@@ -362,7 +362,7 @@ window.addEventListener("resize",draw);
 
 // live mode: recompute kNN edges / random walks server-side as the
 // sliders move (reference parity: vis/Renderer.cpp recomputes on slider
-// change; here the pipeline's own TPU ops run on demand)
+// change; here the pipeline's own device ops run on demand)
 if(DATA.live){
  $("live").style.display="block";
  const linfo=$("liveInfo");

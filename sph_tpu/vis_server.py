@@ -1,4 +1,4 @@
-"""Live hierarchy explorer server — on-demand TPU recompute.
+"""Live hierarchy explorer server — on-demand device recompute.
 
 Reference parity target: the interactive half of vis/Renderer.cpp
 (/root/reference/vis/Renderer.cpp:467-551): as the user drags the k /
@@ -68,7 +68,7 @@ class ExplorerServer:
         self._html: Optional[bytes] = None
         self._walk_cache: dict = {}
         self._knn_cache: dict = {}
-        self._lock = threading.Lock()  # TPU ops are not reentrant
+        self._lock = threading.Lock()  # one recompute at a time
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 

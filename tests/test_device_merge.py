@@ -237,7 +237,7 @@ def test_full_hierarchy_device_equals_host():
 
 
 def test_connect_components_device_equals_host():
-    """The device connect path (MXU closest pairs + targeted row updates)
+    """The device connect path (matmul closest pairs + targeted row updates)
     must produce the same connected graph as the host path."""
     import jax.numpy as jnp
 
@@ -300,3 +300,18 @@ def test_symmetrize_p_device_matches_scipy(mode):
     assert np.array_equal(*_pad_pair(got.indices, want.indices, -1))
     assert np.allclose(*_pad_pair(got.values, want.values, 0),
                        rtol=1e-6, atol=1e-7)
+
+
+def test_use_device_restruct_follows_backend(monkeypatch):
+    """Auto mode: the host merges on the CPU backend, the device kernels
+    on any accelerator; the variable forces either way."""
+    from sph_tpu.ops import device_merge
+    monkeypatch.setenv("SPH_DEVICE_RESTRUCT", "auto")
+    assert not device_merge.use_device_restruct()
+    monkeypatch.setattr(device_merge.jax, "default_backend", lambda: "gpu")
+    assert device_merge.use_device_restruct()
+    monkeypatch.setenv("SPH_DEVICE_RESTRUCT", "0")
+    assert not device_merge.use_device_restruct()
+    monkeypatch.setenv("SPH_DEVICE_RESTRUCT", "1")
+    monkeypatch.setattr(device_merge.jax, "default_backend", lambda: "cpu")
+    assert device_merge.use_device_restruct()

@@ -145,8 +145,7 @@ def test_kl_nonnegative_with_diagonal_p_mass():
     np.fill_diagonal(d, 3.0)   # heavy diagonal mass
     d /= d.sum()
     p = SparseRows.from_dense(d)
-    t = TsneComputation(TsneParameters(num_iterations=200),
-                        use_pallas=False)
+    t = TsneComputation(TsneParameters(num_iterations=200))
     t.set_probability_distribution(p)
     t.compute(verbose=False)
     assert t.kl_divergence() >= 0.0
@@ -192,7 +191,7 @@ def test_tsne_grid_mode_quality(monkeypatch):
 
     def run(grid_env):
         monkeypatch.setenv("SPH_TSNE_GRID", grid_env)
-        tsne = TsneComputation(params, block=64, use_pallas=False)
+        tsne = TsneComputation(params, block=64)
         tsne.set_probability_distribution(p)
         tsne.set_initial_embedding(
             np.asarray(np.random.default_rng(0).standard_normal(
@@ -212,7 +211,7 @@ def test_tsne_grid_mode_quality(monkeypatch):
 
 def test_attractive_forces_chunked_parity(monkeypatch):
     """Row-chunked sparse attraction (the >33M-entry tier that avoids the
-    multi-GB fusion buffers faulting the TPU runtime at N=1M, R=128) is
+    multi-GB fusion buffers at N=1M, R=128) is
     bit-identical to the single-fusion path."""
     from sph_tpu.models.tsne import _attractive_forces
 
@@ -322,3 +321,71 @@ def test_umap_tiers_agree_on_attraction_only():
     # than the row reductions, so its roundoff floor is higher (measured
     # 4.3e-5 at 8 epochs, exact at 1 epoch)
     assert np.allclose(dense, edges, rtol=1e-3, atol=5e-4)
+
+
+def test_dense_p_selected_by_size(monkeypatch):
+    """Dense joint P up to SPH_TSNE_DENSE_P_MAX points on every backend;
+    above it (or in the grid tier) the sparse attraction runs."""
+    from sph_tpu.models.tsne import dense_tiling, use_dense_p
+    p, _, _ = blob_probdist(n=300, k=24, seed=3)
+
+    def init(**env):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        t = TsneComputation(TsneParameters(num_iterations=1))
+        t.set_probability_distribution(p)
+        t._init_gradient_descent()
+        return t
+
+    t = init()
+    assert use_dense_p(300) and t._p_dense is not None
+    assert (t._block_eff, t._npad) == dense_tiling(300)
+    assert t._npad % t._block_eff == 0 and t._npad >= 300
+    assert t._p_dense.shape == (t._npad, t._npad)
+    assert np.isclose(float(t._p_dense.sum()), 1.0, rtol=1e-5)
+
+    t = init(SPH_TSNE_DENSE_P_MAX="299")
+    assert not use_dense_p(300) and t._p_dense is None
+
+    t = init(SPH_TSNE_DENSE_P_MAX="32768", SPH_TSNE_GRID_MIN="200")
+    assert t._use_grid and t._p_dense is None
+
+
+@pytest.mark.parametrize("n", [300, 5358, 16384, 16385, 28807, 32768])
+def test_dense_tiling(n):
+    """One tile up to 16384 padded points, equal row tiles of at most
+    DENSE_TILE_ELEMS elements above."""
+    from sph_tpu.models.tsne import (DENSE_ONE_TILE_MAX, DENSE_TILE_ELEMS,
+                                     dense_tiling)
+    rows, npad = dense_tiling(n)
+    assert npad >= n and npad % rows == 0 and rows % 128 == 0
+    if n <= DENSE_ONE_TILE_MAX:
+        assert rows == npad == -(-n // 128) * 128
+    else:
+        assert rows < npad and rows * npad <= DENSE_TILE_ELEMS + 128 * npad
+        assert npad - n < npad // 8
+
+
+def test_dense_and_sparse_paths_agree(monkeypatch):
+    """The fused dense-P pass and the sparse attraction + tiled repulsion
+    are the same forces: a short run lands on the same embedding.  Kept
+    to a few iterations because the gains update amplifies summation-order
+    roundoff exponentially (measured 1e-7 after 1, 9e-6 after 5, O(1)
+    after 30)."""
+    p, _, _ = blob_probdist(n=200, k=15, seed=5)
+    init = np.asarray(np.random.default_rng(1).standard_normal((200, 2))
+                      * 0.05, np.float32)
+
+    def run(dense_max):
+        monkeypatch.setenv("SPH_TSNE_DENSE_P_MAX", dense_max)
+        t = TsneComputation(TsneParameters(num_iterations=3), block=64)
+        t.set_probability_distribution(p)
+        t.set_initial_embedding(init)
+        t.compute(verbose=False)
+        return t.embedding, t._p_dense is not None
+
+    emb_d, dense = run("32768")
+    emb_s, sparse_dense = run("0")
+    assert dense and not sparse_dense
+    scale = np.abs(emb_s).max()
+    assert np.abs(emb_d - emb_s).max() <= 1e-4 * scale

@@ -70,7 +70,7 @@ def test_ivf_recall():
 
 def test_index_heuristic():
     assert index_heuristic(5_000) == KnnIndex.BRUTE_FORCE
-    # MXU exact tier extends past the reference's 10k CPU cutoff
+    # blocked-matmul exact tier extends past the reference's 10k CPU cutoff
     assert index_heuristic(50_000) == KnnIndex.BRUTE_FORCE
     assert index_heuristic(80_000) == KnnIndex.IVF_FLAT
     assert index_heuristic(1_000_000) == KnnIndex.HNSW

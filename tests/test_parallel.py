@@ -207,10 +207,20 @@ def test_sharded_grid_tsne_auto_regrid():
 
 
 def test_sharded_grid_tsne_finite_and_separates():
-    from sph_tpu.parallel.sharded import sharded_grid_tsne
+    """A caller's grid of 32 nodes is a floor: once the span outgrows its
+    cells (about 60 here, where a grid held at 32 runs away) it grows."""
+    import sph_tpu.parallel.sharded as sh
     p, labels = probdist()
     mesh = make_mesh()
-    emb = sharded_grid_tsne(p.indices, p.values, 150, mesh, grid=32)
+    grids = []
+    orig_make = sh.make_sharded_grid_tsne_step
+    sh.make_sharded_grid_tsne_step = (
+        lambda m, g, *a, **k: grids.append(g) or orig_make(m, g, *a, **k))
+    try:
+        emb = sh.sharded_grid_tsne(p.indices, p.values, 150, mesh, grid=32)
+    finally:
+        sh.make_sharded_grid_tsne_step = orig_make
+    assert grids[0] == 32 and min(grids) == 32 and max(grids) > 32
     assert emb.shape == (96, 2)
     assert np.all(np.isfinite(emb))
     cents = np.stack([emb[labels == c].mean(0) for c in range(2)])

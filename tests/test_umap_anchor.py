@@ -13,8 +13,6 @@ cost neighborhood preservation.
 import numpy as np
 import pytest
 
-from sklearn.manifold import trustworthiness
-
 from sph_tpu import native
 from sph_tpu.models.umap import (UmapComputation, UmapParameters, find_ab,
                                  make_epochs_per_sample)
@@ -78,6 +76,9 @@ def test_umap_batched_matches_sequential_anchor():
     emb_bat = um.embedding
     assert np.all(np.isfinite(emb_bat))
 
+    # sklearn is a test-only dependency; imported here so that collecting
+    # this module needs nothing beyond the library's own
+    from sklearn.manifold import trustworthiness
     t_seq = trustworthiness(pos, emb_seq, n_neighbors=12)
     t_bat = trustworthiness(pos, emb_bat, n_neighbors=12)
     # both preserve neighborhoods well, and the batched optimizer is
